@@ -2,7 +2,7 @@
 //
 // The native runtime piece of the framework's IO path: a worker pool reads
 // and PNG-decodes files ahead of the consumer, keeping a bounded in-order
-// buffer full, so the Python side (and the TPU feed) only ever copies a
+// buffer full, so the Python side (and the device feed) only ever copies a
 // ready frame.  C++17 + pthreads; interface is plain C for ctypes.
 
 #include <condition_variable>

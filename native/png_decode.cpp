@@ -1,7 +1,7 @@
 // Minimal PNG decoder: 8/16-bit gray, RGB, RGBA; non-interlaced.
 //
 // The framework's host-side IO path.  The reference loads images through
-// skimage (Python, single-threaded); feeding a TPU at hundreds of frames
+// skimage (Python, single-threaded); feeding an accelerator at hundreds of frames
 // per second needs decode off the interpreter, so this library decodes
 // PNGs natively and the prefetcher (dataset_loader.cpp) pipelines them
 // across threads.  zlib supplies inflate; filters and layout are handled

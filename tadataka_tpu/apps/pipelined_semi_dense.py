@@ -4,7 +4,7 @@ SURVEY §2.3's last row: the reference runs tracking and depth mapping
 inline in one thread (/root/reference/examples/semi_dense_vo.py:174-207);
 LSD-SLAM's actual architecture decouples them into concurrent threads
 where the TRACKER always consumes the most recent COMPLETED depth map.
-The TPU-native form of that decoupling is device-level pipelining:
+On accelerators that decoupling is device-level pipelining:
 
   device T (tracker): DVO pyramid + pose composition
   device M (mapper):  age increment + propagation + planned plane-sweep
@@ -15,8 +15,8 @@ track(t) and map(t-1).  track(t) reads the newest COMPLETED map
 (frame t-2's), and map(t-1) consumes track(t-1)'s pose from the previous
 call — so neither program enqueued this frame depends on the other, and
 the two devices genuinely execute concurrently: steady-state throughput
-approaches max(track, map) instead of track + map (ADVICE r4 item 1,
-which flagged the earlier same-frame dispatch order as serial).  The
+approaches max(track, map) instead of track + map (a same-frame
+dispatch order would serialize them).  The
 one/two-frame-stale tracking map is the standard LSD-SLAM semantics, not
 an approximation invented here.  ``state.depth_map`` therefore lags the
 pose by one frame; call :meth:`flush_map` to complete the final frame's
@@ -24,8 +24,9 @@ map after the last ``estimate``.
 
 Cross-device traffic per frame: the (H, W) f32 image + pose (T->M) and
 the depth/variance/age maps (M->T), all moved by ``jax.device_put`` —
-ICI transfers on real hardware; works identically on the virtual CPU
-mesh used in CI (tests/parallel/test_pipelined.py).
+intra-host device-to-device (NVLink) copies between GPUs of one host;
+works identically on the virtual CPU mesh of the tests
+(tests/parallel/test_pipelined.py).
 """
 
 from functools import partial
@@ -39,7 +40,7 @@ from tadataka_tpu.camera import CameraParameters, CameraModel
 from tadataka_tpu.core.pose import Pose
 from tadataka_tpu.core.transforms import inv_motion_matrix, motion_matrix
 from tadataka_tpu.dataset.image_io import rgb2gray
-from tadataka_tpu.vo.dvo import estimate_pose_pyramid
+from tadataka_tpu.vo.dvo import DEFAULT_SAMPLE_BUDGET, estimate_pose_pyramid
 from tadataka_tpu.vo.semi_dense import (
     SemiDenseParams, make_frame, propagate, propagate_tent, increment_age,
     regularize)
@@ -124,7 +125,7 @@ class PipelinedSemiDenseVO:
         self.initial_pose_fn = initial_pose_fn
         self.seed = seed
         if dvo_sample_budget is None:
-            dvo_sample_budget = 16 if jax.default_backend() == "tpu" else 0
+            dvo_sample_budget = DEFAULT_SAMPLE_BUDGET
         self.dvo_sample_budget = dvo_sample_budget
         if devices is None:
             ds = jax.devices()

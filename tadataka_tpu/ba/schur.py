@@ -10,7 +10,7 @@ to (local_ba.py:6,77) — re-designed rather than ported:
   so the reduced camera system S (6M x 6M) is tiny while N (landmarks) is
   large — exactly the shape the Schur trick wants.
 - S = U + mu I - sum_i Y_i W_i^T is ONE einsum contraction over landmarks —
-  MXU work, and the axis to shard for the distributed version
+  one dense product, and the axis to shard for the distributed version
   (parallel/distributed_ba.py): shard i over devices, psum S and the camera
   rhs.
 - The LM retry loop (mu/nu, mu, mu*nu^k) is a bounded ``lax.while_loop``.
@@ -113,8 +113,8 @@ def lm_solve(poses, points, viewpoint_indices, point_indices, x_true,
         The normal equations depend only on the linearization point
         (po, pt), NOT on mu — so the system is assembled ONCE per outer
         iteration and every damping trial pays only a Schur solve + a
-        residual evaluation (VERDICT r3 item 4: the old form re-ran the
-        full Jacobian/scatter assembly for every trial)."""
+        residual evaluation, not a full Jacobian/scatter assembly per
+        trial."""
         U, V, W, e_cam, e_pt, error0 = _assemble(
             po, pt, viewpoint_indices, point_indices, x_true, weights)
 

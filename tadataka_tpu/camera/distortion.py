@@ -4,7 +4,7 @@ Parity surface: /root/reference/tadataka/camera/distortion.py (FOV closed
 forms with r~0 guards; COLMAP-convention RadTan) and the reference's
 sympy-generated Newton undistort (/root/reference/tadataka/camera/_radtan.pyx).
 
-TPU notes: the reference generates the 2x2 distort Jacobian with sympy at
+Design: the reference generates the 2x2 distort Jacobian with sympy at
 build time; here it falls out of ``jax.jacfwd`` at trace time.  The Newton
 undistort is a ``lax.while_loop`` with a batched convergence test — the
 data-dependent per-point loop becomes a masked fixed-structure iteration.
@@ -165,8 +165,8 @@ class RadTan(NamedTuple):
         /root/reference/tadataka/camera/_radtan.pyx:65-88).
 
         One whole-array while_loop instead of a vmapped per-point loop:
-        the vmap form builds (N, 2, 2) jacfwd tensors whose minor dims
-        TPU tiling pads 32x, and every point pays the worst point's
+        the vmap form builds (N, 2, 2) jacfwd tensors with tiny minor
+        dims, and every point pays the worst point's
         iteration count either way.  Converged lanes freeze (matching the
         per-point stop), the loop exits when ALL lanes converge.
         """

@@ -37,9 +37,8 @@ class CameraModel(NamedTuple):
         return self.camera_parameters.unnormalize(
             self.distortion_model.distort(normalized_keypoints))
 
-    # Componentwise forms (separate x / y arrays) — the hot-path layout:
-    # packed (N, 2) coordinate tensors pad their minor dim to 128 lanes
-    # on TPU (see CameraParameters.normalize_xy).
+    # Componentwise forms (separate x / y arrays) — the hot-path layout
+    # (see CameraParameters.normalize_xy).
 
     def normalize_xy(self, ux, uy):
         xn, yn = self.camera_parameters.normalize_xy(ux, uy)

@@ -46,8 +46,8 @@ class CameraParameters(NamedTuple):
         return keypoints * self.focal_length + self.offset
 
     # Componentwise forms: separate x / y arrays of any (matching) shape.
-    # On TPU a packed (N, 2) coordinate tensor tiles its minor dim to 128
-    # lanes (64x pad); hot paths (DVO, plane sweep) carry components.
+    # Hot paths (DVO, plane sweep) carry components, not packed (N, 2)
+    # tensors with a tiny minor dimension.
 
     def normalize_xy(self, ux, uy):
         return ((ux - self.offset[0]) / self.focal_length[0],

@@ -5,11 +5,9 @@ semi-dense pipeline), /root/reference/tadataka/gradient.py (scipy reflect-mode
 Sobel used by curvature), and np.gradient as used by DVO
 (/root/reference/tadataka/vo/dvo/jacobian.py:27).
 
-All are expressed as separable static shifts + FMAs — NEVER as
-single-channel ``lax.conv``: XLA:TPU lowers a (C_in=1, C_out=1) 3x3 conv
-onto the 128x128 MXU at 1/16k utilization (two Sobels measured 16.3 ms
-at 480x640 — profiled r5 — vs 1.5 ms as shifts, and the shifts fuse into
-surrounding elementwise work for free).
+All are expressed as separable static shifts + FMAs rather than as a
+single-channel 3x3 ``lax.conv``: the shifts fuse into the surrounding
+elementwise work.
 """
 
 import jax.numpy as jnp

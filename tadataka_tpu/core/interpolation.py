@@ -4,7 +4,7 @@ Parity surface: /root/reference/src/interpolation.rs:9-43 and
 /root/reference/tadataka/interpolation/__init__.py.  Coordinates follow the
 reference convention: c = [x, y] indexes image[y, x].
 
-TPU notes: implemented as four clipped gathers + lerp, natively batched over
+Design: implemented as four clipped gathers + lerp, natively batched over
 any leading shape.  Out-of-range coordinates are clamped — callers that need
 range semantics combine with ``is_in_image_range`` masks (the reference raised
 ValueError instead; masks are the XLA-native equivalent).

@@ -2,8 +2,8 @@
 
 Parity surface: /root/reference/tadataka/so3.py (scipy-Rotation-based exp/log,
 einsum hat map).  Here both maps are closed-form Rodrigues expressions with
-small-angle Taylor guards so they are jit/vmap/grad-safe at theta = 0 — a TPU
-requirement the scipy implementation never faced.
+small-angle Taylor guards so they are jit/vmap/grad-safe at theta = 0 — a
+requirement of compiled array code that the scipy implementation never faced.
 """
 
 import jax.numpy as jnp

@@ -1,8 +1,8 @@
 """Small dense linear solvers used across the VO pipelines.
 
 Parity surface: /root/reference/tadataka/math.py (weighted lstsq / CG).
-On TPU the 6x6 normal-equation solve is the right shape: J^T W J is one
-(N, 6)^T @ (N, 6) matmul that rides the MXU, followed by a tiny Cholesky.
+The 6x6 normal-equation solve is one (N, 6)^T @ (N, 6) matrix product
+followed by a tiny Cholesky.
 """
 
 import jax.numpy as jnp
@@ -17,7 +17,7 @@ def solve_linear_equation(J, r, weights=None, damping=0.0):
 
     J: (N, d), r: (N,), weights: (N,) or None.  ``damping`` adds
     damping * I for Levenberg-style regularization.  Rows can be masked by
-    zero weights — the TPU-native replacement for boolean indexing.
+    zero weights — the static-shape replacement for boolean indexing.
     """
     if weights is not None:
         Jw = J * weights[:, None]

@@ -1,12 +1,9 @@
 """Axis-aligned two-pass image warps (homography / small displacement).
 
-Why this exists: XLA:TPU lowers a *generic* scattered gather at ~7 ns per
-element (a (64, 307200) ``jnp.take`` costs 143 ms on a v5e chip — measured,
-benchmarks/profile_stage2.py), but ``take_along_axis`` along one image axis
-lowers to ``tpu.dynamic_gather`` and runs the same volume in ~30 us.  Any
-warp that can be decomposed into a horizontal resample followed by a
-vertical resample therefore runs ~4000x faster than its scattered-gather
-form.
+Why this exists: a resample along ONE image axis (``take_along_axis``)
+is a far cheaper access pattern than a generic scattered 2-D gather, so
+any warp that can be decomposed into a horizontal resample followed by a
+vertical resample avoids the scattered form.
 
 A homography admits an exact such decomposition (Catmull & Smith 1980,
 "3-D transformations of images in scanline order"): with
@@ -48,7 +45,6 @@ def gather_rows_bilinear(img, y):
     """out[i, j] = img interpolated at (row=y[i, j], col=j).
 
     ``y`` is float, clamped to [0, H-1]; shapes of ``img`` and ``y`` match.
-    Lowered by XLA:TPU to two tpu.dynamic_gather ops along the sublane axis.
     """
     H = img.shape[0]
     yc = jnp.clip(y, 0.0, H - 1.0)

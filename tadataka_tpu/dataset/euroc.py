@@ -8,7 +8,6 @@ synced to both image streams.
 from pathlib import Path
 
 import numpy as np
-import yaml
 from scipy.spatial.transform import Rotation
 
 from tadataka_tpu.camera import CameraModel, CameraParameters, RadTan
@@ -29,6 +28,7 @@ def _load_image_paths(dataset_root, camera_index):
 
 
 def load_camera_params(dataset_root, camera_index):
+    import yaml   # only the EuRoC file loader needs it
     path = Path(_camera_dir(dataset_root, camera_index), "sensor.yaml")
     with open(path, 'r') as f:
         d = yaml.safe_load(f)

@@ -1,20 +1,23 @@
-"""Minimal image file IO (PIL-backed).
+"""Minimal image file IO (PIL-backed) and gray conversion.
 
-The reference reads images through skimage.io; this environment ships PIL
-only.  Handles 8-bit gray/RGB(A) and 16-bit depth PNGs.
+The reference reads images through skimage.io; here file IO goes through
+PIL, imported only by ``imread``/``imsave`` so that the in-memory
+pipelines (which only need ``rgb2gray``) run without it.  Handles 8-bit
+gray/RGB(A) and 16-bit depth PNGs.
 """
 
 import numpy as np
-from PIL import Image
 
 
 def imread(path):
+    from PIL import Image
     with Image.open(str(path)) as img:
         arr = np.asarray(img)
     return arr
 
 
 def imsave(path, array):
+    from PIL import Image
     array = np.asarray(array)
     if array.dtype == np.uint16:
         img = Image.fromarray(array.astype(np.int32), mode="I")

@@ -3,8 +3,8 @@
 Parity surface: /root/reference/tadataka/feature/feature.py:24-29 (skimage
 BRIEF, descriptor_size=512, patch_size=64, uniform sampling, sigma=0.1).
 
-TPU design: bits are stored as +-1 float32 so Hamming distance becomes an
-MXU matmul: for D-bit codes a, b in {-1, +1}^D, hamming = (D - a.b) / 2.
+Design: bits are stored as +-1 float32 so Hamming distance becomes a
+matrix product: for D-bit codes a, b in {-1, +1}^D, hamming = (D - a.b) / 2.
 The sampling pattern is a fixed compile-time constant.
 """
 

@@ -1,4 +1,4 @@
-"""Descriptor matching on the MXU.
+"""Descriptor matching as one dense matrix product.
 
 Parity surface: /root/reference/tadataka/match.py (cross-check + Lowe ratio
 0.8 over a dense distance matrix — the reference's hot spot, computed there
@@ -6,9 +6,10 @@ with sklearn pairwise_distances) and the Matcher pipeline of
 /root/reference/tadataka/feature/feature.py:97-134 (match -> RANSAC
 fundamental inlier filter -> chi^2 symmetric-transfer filter).
 
-TPU design: for +-1 descriptors the Hamming distance matrix is
-(D - A B^T) / 2 — one bf16-friendly matmul with f32 accumulation.  Masked
-argmin replaces boolean compaction; match lists keep static capacity K1.
+Design: for +-1 descriptors the Hamming distance matrix is
+(D - A B^T) / 2 — one matmul with f32 accumulation, exact even in TF32.
+Masked argmin replaces boolean compaction; match lists keep static
+capacity K1.
 """
 
 from functools import partial
@@ -31,9 +32,10 @@ class Matches(NamedTuple):
 
 @jax.jit
 def hamming_distances(descriptors1, descriptors2):
-    """(K1, K2) Hamming distances between +-1 codes, via the MXU."""
+    """(K1, K2) Hamming distances between +-1 codes, as one matmul."""
     D = descriptors1.shape[1]
-    # fast-precision matmul with f32 accumulation: codes are exact in bf16
+    # fast-precision matmul with f32 accumulation: +-1 codes are exact in
+    # TF32 and bf16, and the integer sums stay below 2^24
     S = jax.lax.dot_general(
         descriptors1, descriptors2,
         dimension_numbers=(((1,), (1,)), ((), ())),
@@ -83,8 +85,8 @@ def match_descriptors_guided(descriptors1, descriptors2, mask1, mask2,
     This is the guided search of ORB-SLAM-style local-map tracking — an
     upgrade over the reference's global brute-force matching: the spatial
     gate removes most repetitive-texture ambiguity, so low-parallax frames
-    keep far more correct associations.  On TPU the gate is one extra
-    (K1, K2) distance matrix fused into the same masked-argmin program.
+    keep far more correct associations.  The gate is one extra (K1, K2)
+    distance matrix fused into the same masked-argmin program.
     """
     dist = hamming_distances(descriptors1, descriptors2)
     dist = jnp.where(mask1[:, None], dist, _BIG)
@@ -126,8 +128,8 @@ def match_pairs_stacked(descs1, kps1, masks1, desc2, kp2, mask2, keys,
     program: (V, K, D) stacked old-viewpoint features vs the new frame.
 
     Returns (indices (V, K, 2), masks (V, K)).  One dispatch + one fetch
-    replaces V sequential Matcher programs — on a remote-dispatch TPU
-    path each extra dispatch/fetch costs 5-30 ms (vo/feature_based.py).
+    replaces V sequential Matcher programs, each with its own dispatch
+    and fetch.
     Semantics per pair are identical to Matcher.__call__.
     """
     from tadataka_tpu.features.ransac import ransac_fundamental

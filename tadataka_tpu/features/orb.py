@@ -5,10 +5,10 @@ Parity surface: the reference keeps an unused ORB extractor next to BRIEF
 descriptor: intensity-centroid orientation (Rosin moments, as in Rublee et
 al. ICCV'11) + a BRIEF pattern steered by the keypoint angle.
 
-TPU design: all K keypoints compute their orientation from the same fixed
+Design: all K keypoints compute their orientation from the same fixed
 circular-disk offset table in one gather + two weighted reductions; the
 per-keypoint pattern rotation is a (K, 1, 1) x (D, 2) broadcast matmul.
-Descriptors are +-1 float32 so matching rides the MXU like BRIEF
+Descriptors are +-1 float32 so matching is one matrix product like BRIEF
 (features/matching.py).
 """
 

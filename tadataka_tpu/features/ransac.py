@@ -4,7 +4,7 @@ Parity surface: skimage's ``ransac`` as used by the reference
 (/root/reference/tadataka/feature/feature.py:79-94: FundamentalMatrixTransform
 min_samples=8, AffineTransform, residual_threshold=1, max_trials=100).
 
-TPU design: all trials run in parallel under vmap — each trial samples its
+Design: all trials run in parallel under vmap — each trial samples its
 minimal set, fits the model (batched SVD / solve), scores every candidate
 with a masked residual, and a single argmax picks the consensus winner.  No
 data-dependent trial loop, no early exit.

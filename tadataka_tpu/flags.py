@@ -3,7 +3,7 @@
 The reference reports per-pixel failures through a Rust ``enum Flag``
 (/root/reference/src/semi_dense/flag.rs:3-14) mirrored in Python
 (/root/reference/tadataka/vo/semi_dense/flag.py:4-14).  A flag *array* is the
-natural TPU representation: every lane computes its flag with ``lax.select``
+natural array representation: every lane computes its flag with ``lax.select``
 chains and downstream consumers mask on ``flag == SUCCESS`` — no control flow,
 no exceptions, fully vmappable.
 """

@@ -1,15 +1,15 @@
 """Distributed Schur-complement bundle adjustment.
 
-The BASELINE north star: shard landmarks (and their observations) across
-devices; each device assembles its local V/W blocks and its contribution to
-the reduced camera system; ``psum`` over the ICI reduces the (6M x 6M)
-camera system, which every device solves redundantly (it is tiny); landmark
+Shard landmarks (and their observations) across devices; each device
+assembles its local V/W blocks and its contribution to the reduced camera
+system; ``psum`` over the device axis reduces the (6M x 6M) camera
+system, which every device solves redundantly (it is tiny); landmark
 back-substitution stays local.  Per LM iteration the only communication is
 psum(S) + psum(rhs) + psum(scalar error) — O(M^2) floats, independent of the
 landmark count.
 
 Everything runs under one ``shard_map``-ed jit, so the same code compiles
-for 1 chip or a pod slice.
+for one device or many.
 """
 
 from functools import partial

@@ -4,8 +4,8 @@ The framework's parallel axes:
 - ``pixel`` — data parallelism over pixel blocks (semi-dense depth maps,
   DVO residual grids).  Zero-communication except halo-free reductions.
 - ``point`` — landmark sharding for distributed bundle adjustment; the
-  reduced camera system is psum-reduced over this axis (the ICI collective
-  path).
+  reduced camera system is psum-reduced over this axis (an intra-host
+  NVLink collective).
 
 One physical axis serves both in round 1 (they are never active in the same
 program); richer meshes (pixel x point) drop in without API changes.

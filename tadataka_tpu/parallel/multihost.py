@@ -1,21 +1,21 @@
 """Multi-host scaffolding: distributed initialization + host-aware meshes.
 
-BASELINE.md's north star asks for >80% BA scaling efficiency at 2+
-hosts.  The single-controller code in this package (sharded_semi_dense,
+The single-controller code in this package (sharded_semi_dense,
 distributed_ba) is written against an abstract ``Mesh`` and works
 unchanged over a multi-host device set — what a multi-host launch
 additionally needs is (1) runtime initialization on every process and
-(2) a mesh whose axis layout keeps the heavy collectives on ICI instead
-of DCN.  This module provides both; it degenerates gracefully to the
-single-process case, which is what CI can exercise (multi-host hardware
-is not available on this rig — the launcher is validated by its
-single-process path plus the virtual-device mesh tests).
+(2) a mesh whose axis layout keeps the heavy collectives on the
+intra-host links (NVLink between the GPUs of one host) instead of the
+inter-host network.  This module provides both; it degenerates
+gracefully to the single-process case (validated by that path, the
+virtual-device mesh tests and a real two-process test).
 
 Collective-placement rule encoded here: the landmark axis of the
 distributed BA psum and the pixel-column axis of the sharded sweep both
 reduce per-iteration megabyte-scale blocks — they go on the FAST
-(intra-slice ICI) mesh dimension; anything sharded across hosts rides
-DCN and should only move bulk data that amortizes (frame batches).
+(intra-host, NVLink) mesh dimension; anything sharded across hosts rides
+the network and should only move bulk data that amortizes (frame
+batches).
 """
 
 import os
@@ -53,20 +53,20 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
 def make_host_mesh(intra_axis="shard", inter_axis="host"):
     """Build a 2-D (host, intra-host) mesh over ALL devices.
 
-    The fast ``intra_axis`` spans each host's local devices (ICI) — put
+    The fast ``intra_axis`` spans each host's local devices (NVLink) — put
     the per-iteration collectives there: the landmark-marginalized
     camera-system psum of distributed_ba and the regularization halo of
-    the sharded sweep.  The slow ``inter_axis`` spans hosts (DCN) — use
+    the sharded sweep.  The slow ``inter_axis`` spans hosts (network) — use
     it for frame/sequence parallelism where transfers amortize over a
     whole pipeline step.
 
     Single-host processes get a (1, n_local) mesh, so code written
     against this layout runs unchanged in CI.
 
-    Devices are grouped EXPLICITLY by ``process_index`` (ADVICE r4: a
+    Devices are grouped EXPLICITLY by ``process_index`` (a
     bare reshape assumes jax.devices() orders contiguously by process,
     which device-id ordering does not guarantee on all topologies — a
-    straddled row would put the per-iteration collectives on DCN).
+    straddled row would put the per-iteration collectives on the network).
     """
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     n_local = jax.local_device_count()
@@ -82,7 +82,7 @@ def local_slice(mesh, global_array_len, inter_axis="host"):
     leading axis (e.g. which frames of a sequence this host ingests).
 
     The remainder of a non-divisible length goes one-each to the first
-    hosts (ADVICE r4: the floor division silently dropped the last
+    hosts (a floor division would silently drop the last
     ``len % n_hosts`` items)."""
     n_hosts = mesh.shape[inter_axis]
     idx = jax.process_index()

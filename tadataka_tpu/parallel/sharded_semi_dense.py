@@ -59,8 +59,7 @@ def make_sharded_update_depth(mesh, shape, n_ref_samples=DEFAULT_N_REF_SAMPLES):
 
 # --------------------------- fast path: column-sharded plane sweep
 
-def make_sharded_update_sweep(mesh, shape, plan, regularize=True,
-                              use_pallas=None):
+def make_sharded_update_sweep(mesh, shape, plan, regularize=True):
     """Multi-chip FAST depth update: the planned tent plane sweep with
     the pixel grid COLUMN-sharded over ``mesh``.
 
@@ -97,9 +96,8 @@ def make_sharded_update_sweep(mesh, shape, plan, regularize=True,
         col0 = jax.lax.axis_index(axis) * cols_per_device
         d, v, f = update_depth_sweep(
             keyframe, refframes, age_map, prior_depth, prior_variance,
-            params, n_planes=plan.n_planes, use_pallas=use_pallas,
-            warp_budget=plan.warp_budget, key_budget=KEY_BUDGET,
-            redirect=plan.redirect, col_offset=col0)
+            params, n_planes=plan.n_planes, warp_budget=plan.warp_budget,
+            key_budget=KEY_BUDGET, redirect=plan.redirect, col_offset=col0)
         if regularize:
             d = _regularize_halo(d, v, f, axis)
         return d, v, f

@@ -5,7 +5,7 @@ fundamental via nullspace, E decomposition Eq. 9.14) and
 /root/reference/tadataka/pose.py:104-170 (cheirality vote over the four
 (R, t) candidates using triangulated-depth positivity).
 
-TPU design: all four candidates triangulate a fixed-size point subset in one
+Design: all four candidates triangulate a fixed-size point subset in one
 batched DLT; the vote is an argmax — no itertools, no python branching.
 """
 

@@ -3,9 +3,9 @@
 Parity surface: the reference's ``solve_pnp`` delegates to
 ``cv2.solvePnPRansac(..., flags=cv2.SOLVEPNP_EPNP)``
 (/root/reference/tadataka/pose.py:85) — this module replaces the OpenCV
-EPnP solver with a TPU-native one.
+EPnP solver with a static-shape array one.
 
-TPU design: everything is fixed-shape linear algebra — one 4x4 (or 2x2)
+Design: everything is fixed-shape linear algebra — one 4x4 (or 2x2)
 solve for the barycentric coordinates, one 12x12 (or 9x9) symmetric
 eigendecomposition for the camera-frame control points, and a Kabsch
 alignment for (R, t).  Two hypothesis branches run unconditionally
@@ -153,7 +153,7 @@ def _mean_reprojection_error(R, t, points, keypoints):
     err = jnp.where(P[:, 2] <= 0, 1e6, err)
     err = jnp.mean(err)
     # a degenerate branch (e.g. the general layout on an exactly-planar
-    # scene, where the barycentric solve blows up in f32 on TPU) must not
+    # scene, where the barycentric solve blows up in f32) must not
     # hijack the argmin with NaN
     return jnp.where(jnp.isfinite(err), err, 1e9)
 

@@ -5,7 +5,7 @@ The reference delegates minimal-solver pose estimation to cv2's RANSAC
 minimal solver used alongside it.  This is a closed-form, branch-free
 implementation — quartic roots via Ferrari's method with where-masked
 discriminant branches — so one trial vmaps across thousands of RANSAC
-samples on the TPU with no data-dependent control flow.
+samples on the device with no data-dependent control flow.
 
 Math: squared side lengths a2/b2/c2 between the 3 world points, cosines of
 the bearing angles, then distances s_i to the camera from the quartic in

@@ -4,7 +4,7 @@ Parity surface: /root/reference/tadataka/robust/weights.py (student-t nu=5
 with iterative variance, Tukey beta=4.6851 on MAD-scaled residuals, Huber
 k=1.345 — Kerl ICRA'13).
 
-TPU notes: every function takes an optional validity mask instead of the
+Design: every function takes an optional validity mask instead of the
 reference's boolean compaction; masked lanes get weight 0 and never influence
 the statistics.  The data-dependent iteration count of the student-t variance
 fit becomes a fixed ``lax.fori_loop``.

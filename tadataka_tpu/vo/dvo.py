@@ -5,10 +5,10 @@ robust Gauss-Newton with error-increase stop; residual I0 - I1 at the
 original pixel grid, per-iteration 2x6 Jacobian at the warped points) and
 /root/reference/tadataka/vo/dvo/jacobian.py (the analytic Jacobian).
 
-TPU design: the whole per-level Gauss-Newton loop is one jitted
+Design: the whole per-level Gauss-Newton loop is one jitted
 ``lax.while_loop``; boolean compaction (``r[mask]``) becomes zero-weight
-masking so shapes stay static.  J^T W J is a (N, 6)-matmul reduction — MXU
-work — followed by a 6x6 solve.  The pyramid is a Python loop over static
+masking so shapes stay static.  J^T W J is a (N, 6)-matmul reduction
+followed by a 6x6 solve.  The pyramid is a Python loop over static
 shapes (one trace per level, cached across calls).
 """
 
@@ -39,8 +39,8 @@ def calc_jacobian(focal_length, gx, gy, P):
 
 
 def calc_jacobian_cols(focal_length, gx, gy, x, y, z):
-    """The six Jacobian columns as separate (N,) arrays — the TPU layout
-    (an (N, 6) tensor tiles its minor dim to 128 lanes: 21x pad)."""
+    """The six Jacobian columns as separate (N,) arrays (componentwise
+    layout, no (N, 6) tensor with a tiny minor dimension)."""
     fx, fy = focal_length[0], focal_length[1]
     fgx, fgy = fx * gx, fy * gy
     z2 = z * z
@@ -195,7 +195,7 @@ def _in_image_xy(x, y, shape):
 def _normal_equations(J_cols, w, residuals):
     """6x6 J^T W J and J^T W r from six (N,) Jacobian columns.
 
-    (6, N) stacks keep the pixel axis minor (clean TPU tiling); the
+    (6, N) stacks keep the pixel axis minor; the
     contraction runs as one dot_general.
     """
     Jt = jnp.stack(J_cols)                         # (6, N)
@@ -215,17 +215,17 @@ def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
     and is computed once per level; each iteration costs one bilinear
     sample of I1 plus a (6, N) reduction — a 3x cut in gather traffic vs
     the forward-compositional loop.  All per-pixel state is carried as
-    separate (N,) component arrays: packed (N, 2)/(N, 3)/(N, 6) tensors
-    tile their minor dim to 128 lanes on TPU (21-64x pad — profiled r5).
+    separate (N,) component arrays, not packed (N, 2)/(N, 3)/(N, 6)
+    tensors.
     The pose increment composes on the template side:
     pose10 <- pose10 * exp(xi)^-1.
 
     ``sample_budget`` > 0 replaces the per-iteration scattered bilinear
-    gather of I1 (~17 ms at 480x640 on a v5e — benchmarks/profile_dvo.py)
-    with the gather-free tent shift-sum resample (core/shiftwarp.py)
-    bounded by that static pixel budget; lanes whose inter-frame flow
-    exceeds it are masked out of the normal equations (the coarse-to-fine
-    pyramid keeps residual flow small at every level for VO motion).
+    gather of I1 with the gather-free tent shift-sum resample
+    (core/shiftwarp.py) bounded by that static pixel budget; lanes whose
+    inter-frame flow exceeds it are masked out of the normal equations
+    (the coarse-to-fine pyramid keeps residual flow small at every level
+    for VO motion).
     """
     H, W = I0.shape
     f32 = I0.dtype
@@ -309,6 +309,12 @@ def _estimate_level_ic(camera_model0, camera_model1, I0, D0, I1, weight_map,
     return R, t
 
 
+# Per-iteration resample of I1 for every backend: 0 = bilinear gather,
+# > 0 = gather-free tent shift-sum with that pixel budget.  Chosen by
+# timing both arms of SemiDenseVO and DvoTrajectory on an H100 (PERF.md).
+DEFAULT_SAMPLE_BUDGET = 0
+
+
 def _resize_image(image, shape):
     return jax.image.resize(image, shape, method="linear")
 
@@ -328,20 +334,18 @@ def estimate_pose_pyramid(camera_model0, camera_model1, I0, D0, I1,
 
     All pyramid levels (static shapes), their resizes, and the per-level
     Gauss-Newton while_loops compile into a single XLA computation — one
-    host dispatch per frame instead of dozens (which matters doubly on a
-    remote-dispatch TPU path).
+    host dispatch per frame instead of dozens.
 
     ``sample_budget`` > 0 switches every level's per-iteration image
     resample to the gather-free tent shift-sum path with that static pixel
-    budget (the TPU configuration — scattered gathers run at ~14 ns per
-    element on a v5e; benchmarks/profile_dvo.py).
+    budget; 0 keeps the bilinear gather.
 
     ``grids``: optional per-level (x0n, y0n) normalized template grids
     (finest level LAST, matching the reversed loop), precomputed once by
     the caller.  For distorted cameras the normalization runs a Newton
     undistort over the whole grid — identical every frame; precomputing
     it (PoseChangeEstimator does, via camera/table.py semantics) removes
-    it from the per-frame program (VERDICT r4 item 6)."""
+    it from the per-frame program."""
     H, W = I0.shape
     R, t = R10, t10
     level_fn = _estimate_level_ic if method == "ic" else _estimate_level
@@ -396,9 +400,8 @@ class PoseChangeEstimator:
 
         sample_budget: static pixel budget for the gather-free tent
         resample of I1 (core/shiftwarp.py); lanes whose inter-frame flow
-        exceeds it are dropped from the normal equations.  ``None`` picks
-        16 px on TPU (where scattered gathers are the dominant cost —
-        benchmarks/profile_dvo.py) and the exact gather path elsewhere."""
+        exceeds it are dropped from the normal equations.  0 runs the
+        exact bilinear gather; ``None`` takes ``DEFAULT_SAMPLE_BUDGET``."""
         self.camera_model0 = camera_model0
         self.camera_model1 = camera_model1
         self.n_coarse_to_fine = n_coarse_to_fine
@@ -406,7 +409,7 @@ class PoseChangeEstimator:
         self.layer_size_ratio = layer_size_ratio
         self.method = method
         if sample_budget is None:
-            sample_budget = 16 if jax.default_backend() == "tpu" else 0
+            sample_budget = DEFAULT_SAMPLE_BUDGET
         self.sample_budget = sample_budget
         self._grids = {}      # image shape -> per-level normalized grids
 

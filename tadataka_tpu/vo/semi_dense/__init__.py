@@ -1,11 +1,11 @@
-"""LSD-SLAM-style semi-dense inverse-depth estimation, TPU-native.
+"""LSD-SLAM-style semi-dense inverse-depth estimation as array programs.
 
 Parity surface: /root/reference/src/semi_dense/ (the reference's Rust crate:
 per-pixel epipolar search with a 5-sample key patch, normalized-SSD matching,
 geometric+photometric variance model, Gaussian hypothesis fusion, depth/
 variance propagation, age tracking).
 
-TPU design: the reference runs a serial H*W double loop with early-exit
+Design: the reference runs a serial H*W double loop with early-exit
 ``Result<_, Flag>`` per pixel (semi_dense.rs:186-228).  Here every pixel is
 one vmap lane: the epipolar line is sampled at a fixed maximum length with a
 validity mask, failures become flag values selected with where-chains, and

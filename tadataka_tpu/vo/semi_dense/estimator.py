@@ -3,7 +3,7 @@
 Parity surface: /root/reference/src/semi_dense/semi_dense.rs (estimate /
 update_depth), epipolar.rs, depth.rs, variance.rs, intensities.rs.
 
-TPU design decisions vs the reference:
+Design decisions vs the reference:
 - The epipolar line gets a STATIC sample budget ``n_ref_samples``.  When the
   geometric range needs more samples than the budget, the step size grows to
   keep the full +-2 sigma search range covered (the reference instead walks
@@ -165,18 +165,16 @@ def _ssd_search(ref_intensities, key_intensities, n_valid):
 class PixelGeoScalars(NamedTuple):
     """Per-pixel epipolar geometry — SCALAR fields only.
 
-    Two layout rules bought a combined ~10^4x on XLA:TPU:
+    Two layout rules:
     - Components are SEPARATE x / y fields, never packed (..., 2) tensors:
       slicing a packed tensor's trailing axis materializes (N, S, 1)
-      intermediates whose (8, 128) tiling pads them 128x.
+      intermediates.
     - NO per-sample (5,) / (S,) arrays come out of the per-pixel vmap.
       vmap emits its outputs with the pixel axis in a minor physical
-      layout; image gathers consuming indices in that layout fall off
-      XLA:TPU's fast gather path (measured 597 ms vs 0.07 ms for the
-      identical gather with row-major indices at 480x640, S=64).  Sample
-      coordinates are therefore built OUTSIDE the vmap by broadcasting
-      these scalars against the sample-index axis (row-major by
-      construction); see ``_key_coords`` / ``_ref_coords``.
+      layout, and image gathers consuming indices in that layout stride
+      badly.  Sample coordinates are therefore built OUTSIDE the vmap by
+      broadcasting these scalars against the sample-index axis (row-major
+      by construction); see ``_key_coords`` / ``_ref_coords``.
     """
     x_key_x: jnp.ndarray      # normalized key coord
     x_key_y: jnp.ndarray
@@ -355,9 +353,8 @@ def pixel_geometry_map(us_x, us_y, prior_inv_depth, prior_variance, T_rk,
     Same math, but written as plain (N,)-array component code instead of
     a per-pixel vmap: vmapping the scalar form turns every internal
     2/3-vector (``jnp.array([...])``, ``jnp.linalg.norm``) into an
-    (N, 2)/(N, 3) tensor whose minor dim the TPU tiles to 128 lanes —
-    a 42-64x pad that made stage A + stage C the dominant cost of the
-    plane sweep (profiled r5).  Callers run this once per ACTIVE
+    (N, 2)/(N, 3) tensor with a tiny minor dimension.  Callers run this
+    once per ACTIVE
     refframe (T_rk is a single 4x4) and merge by age index.
     """
     f32 = us_x.dtype
@@ -515,8 +512,7 @@ def estimate_pixel(u_key, prior_inv_depth, prior_variance,
 
     NOTE: image sampling here runs per pixel — fine for single-pixel use
     (estimate_debug); ``update_depth`` instead batches the gathers across
-    the whole map OUTSIDE the per-pixel vmap (XLA:TPU lowers vmap-batched
-    gathers ~10^4 x slower than the identical batched gather expression).
+    the whole map OUTSIDE the per-pixel vmap.
     """
     key_shape = key_image.shape
     ref_shape = ref_images.shape[1:]
@@ -635,11 +631,9 @@ def update_depth(keyframe: SemiDenseFrame, refframes: SemiDenseFrame,
     ridx = jnp.clip(R_frames - age, 0, R_frames - 1)
 
     # Layout discipline for every LARGE per-pixel tensor: the pixel axis N
-    # must be the MINOR (last) dimension.  XLA:TPU tiles the two minor dims
-    # to (8, 128); an (N, 5) or (N, 4, 4) tensor pads its tiny minor dim to
-    # 128 lanes (25-64x memory blowup — gigabytes of HBM at 480x640), which
-    # evicts live buffers to the host and collapses throughput ~1000x.
-    # Column-major (5, N) / (16, N) / (S, N) shapes pad (nearly) nothing.
+    # must be the MINOR (last) dimension: column-major (5, N) / (16, N) /
+    # (S, N) shapes keep memory access contiguous along pixels, where an
+    # (N, 5) or (N, 4, 4) tensor strides over a tiny minor dimension.
     T_cols = T_rk_all.reshape(R_frames, 16).T[:, ridx]       # (16, N)
     e_cols = e_key_all.T[:, ridx]                            # (2, N)
     rf_cols = refframes.focal_length.T[:, ridx]              # (2, N)

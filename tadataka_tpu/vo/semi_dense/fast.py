@@ -1,6 +1,6 @@
 """Host-side planner + dispatcher for the semi-dense depth update.
 
-Picks, per (keyframe, refframe-history) geometry, the fastest TPU path
+Picks, per (keyframe, refframe-history) geometry, the fastest path
 that is exact for that geometry, in preference order:
 
   tent    — homography plane sweep with tent shift-sum warps (sweep.py::
@@ -27,8 +27,8 @@ bucketed so a VO run compiles each path a handful of times, not per
 frame.
 
 Reference scope: this whole module replaces the implicit "one Rust loop
-fits all" dispatch of /root/reference/src/semi_dense/semi_dense.rs:160 —
-the TPU needs geometry-specialized programs to hit memory-bound speed.
+fits all" dispatch of /root/reference/src/semi_dense/semi_dense.rs:160
+with geometry-specialized programs.
 """
 
 from typing import NamedTuple
@@ -93,7 +93,12 @@ def _np_homography_span(Ha, Hb, image_shape, n=9):
                           Qa[1] / Qa[2] - Qb[1] / Qb[2]).max())
 
 
-FLOW_TAPS_MAX = 1600   # tap-scatter propagation cap (nx * ny)
+# Tap-scatter propagation cap (nx * ny), the same for every backend.  The
+# tap grid unrolls into whole-image selects whose compile time grows
+# steeply with the tap count: on an H100, XLA:GPU took 162 s and 242 s for
+# grids of 238 and 255 taps and 11 min for one of several hundred.  Wider
+# flows take the scatter path, which compiles in seconds.
+FLOW_TAPS_MAX = 64
 _FLOW_BUCKET = 4
 
 
@@ -140,11 +145,6 @@ def plan_flow_bounds(T10, focal, offset, image_shape, q0, q1,
     dx_lo, dx_hi = lo_hi(dxs)
     dy_lo, dy_hi = lo_hi(dys)
     n_taps = (dx_hi - dx_lo + 1) * (dy_hi - dy_lo + 1)
-    import jax
-    if jax.default_backend() != "tpu":
-        # XLA:CPU compile time grows steeply with the unrolled tap count
-        # (~13 s at 225 taps); keep CI fast, fall back to scatter sooner
-        taps_max = min(taps_max, 256)
     if n_taps > taps_max:
         return None
     return (dx_lo, dx_hi, dy_lo, dy_hi)
@@ -206,7 +206,7 @@ def plan_update_np(key_T, key_f, key_c, image_shape,
         # per-pixel v_z spread over the image corners (the depth
         # re-projection factor of the rectifying rotation): coverage must
         # span [min_vz * q0, max_vz * q1] disparities, not a flat 10%
-        # headroom (ADVICE r3 item 2 — silent window truncation)
+        # headroom (which silently truncated windows)
         sgn = -1.0 if flip else 1.0
         r1 = sgn * b / B
         r2 = np.cross([0.0, 0.0, 1.0], r1)
@@ -318,8 +318,7 @@ def plan_update_np(key_T, key_f, key_c, image_shape,
 
 
 def update_depth_fast(keyframe, refframes, age_map, prior_depth,
-                      prior_variance, params, use_pallas=None, plan=None,
-                      fuse_prior=False):
+                      prior_variance, params, plan=None, fuse_prior=False):
     """Dispatching semi-dense depth update; contract of
     estimator.update_depth (semi_dense.rs:160-237)."""
     from tadataka_tpu.vo.semi_dense.estimator import update_depth
@@ -332,13 +331,12 @@ def update_depth_fast(keyframe, refframes, age_map, prior_depth,
         return update_depth_rect(
             keyframe, refframes, age_map, prior_depth, prior_variance,
             params, n_planes=plan.n_planes[0], flips=plan.flips,
-            max_dx=RECT_MAX_DX, max_dy=RECT_MAX_DY, use_pallas=use_pallas,
-            fuse_prior=fuse_prior)
+            max_dx=RECT_MAX_DX, max_dy=RECT_MAX_DY, fuse_prior=fuse_prior)
     if plan.path == 'tent':
         return update_depth_sweep(
             keyframe, refframes, age_map, prior_depth, prior_variance,
-            params, n_planes=plan.n_planes, use_pallas=use_pallas,
-            warp_budget=plan.warp_budget, key_budget=KEY_BUDGET,
-            redirect=plan.redirect, fuse_prior=fuse_prior)
+            params, n_planes=plan.n_planes, warp_budget=plan.warp_budget,
+            key_budget=KEY_BUDGET, redirect=plan.redirect,
+            fuse_prior=fuse_prior)
     return update_depth(keyframe, refframes, age_map, prior_depth,
                         prior_variance, params, fuse_prior=fuse_prior)

@@ -5,7 +5,7 @@ pixel's hypothesis into the next frame; variance inflates by the
 inverse-depth ratio to the 4th power plus a bias; colliding hypotheses fuse
 when statistically compatible, otherwise the nearer surface wins.
 
-TPU design: the reference resolves collisions with a sequential HashMap whose
+Design: the reference resolves collisions with a sequential HashMap whose
 result depends on scan order (propagation.rs:59-81).  Here the resolution is
 a deterministic two-pass scatter: (1) ``scatter-min`` on depth elects the
 nearest hypothesis per target pixel, (2) every hypothesis compatible with
@@ -101,18 +101,16 @@ def propagate_tent(T10, camera_params0, camera_params1,
                    depth_map0, variance_map0, age_map0,
                    default_depth, default_variance, uncertainty_bias,
                    bounds):
-    """Fused propagate + increment_age with ZERO scatter/gather ops — the
-    TPU fast path.
+    """Fused propagate + increment_age with ZERO scatter/gather ops.
 
-    XLA:TPU lowers every generic 307k-element scatter at ~11 ns/element
-    (3.5 ms each; `propagate` runs four of them plus three gathers —
-    17 ms total, profiled r5).  For inter-frame VO the displacement of
+    `propagate` runs four whole-map scatters plus three gathers.  For
+    inter-frame VO the displacement of
     the depth-induced warp is bounded, so the scatter becomes a static
     TAP LOOP: for each integer displacement (kx, ky) inside ``bounds``,
     the sources whose rounded target cell is exactly (x+kx, y+ky) are
     selected by one integer compare of a precomputed tap code and
     accumulated into the statically-shifted output window — pure
-    shift + select + min/add VPU work, the scatter analogue of the tent
+    shift + select + min/add elementwise work, the scatter analogue of the tent
     shift-sum warps (core/shiftwarp.py).
 
     ``bounds`` = (dx_lo, dx_hi, dy_lo, dy_hi), static ints from the

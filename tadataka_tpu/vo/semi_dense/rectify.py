@@ -2,7 +2,7 @@
 
 Factorizes the epipolar sampling warp (reference:
 /root/reference/src/semi_dense/epipolar.rs:38-54) into the one structure
-the TPU runs at vector speed:
+that runs as plain vector work:
 
     per-pair rotation warp (bounded displacement, gather-free)
       + per-plane constant horizontal shift (a slice)

@@ -2,7 +2,7 @@
 
 Parity surface: /root/reference/src/semi_dense/regularization.rs (written but
 disabled in the reference, mod.rs:13; enabled here — as two 3x3 box-filter
-convolutions it is nearly free on TPU).
+convolutions it is nearly free).
 """
 
 import jax
@@ -13,8 +13,7 @@ from tadataka_tpu.vo.semi_dense.estimator import safe_invert
 
 
 def _box3(x):
-    """SAME zero-padded 3x3 box sum as separable shifts + adds (a
-    single-channel lax.conv runs the MXU at 1/16k utilization — see
+    """SAME zero-padded 3x3 box sum as separable shifts + adds (see
     core/gradients.py)."""
     p = jnp.pad(x, ((0, 0), (1, 1)))
     h = p[:, :-2] + p[:, 1:-1] + p[:, 2:]

@@ -1,4 +1,4 @@
-"""Plane-sweep semi-dense depth update — the TPU fast path.
+"""Plane-sweep semi-dense depth update — the fast path.
 
 Parity surface: the same per-pixel algorithm as estimator.py (and the
 reference's /root/reference/src/semi_dense/semi_dense.rs:91-158 /
@@ -9,11 +9,10 @@ For inverse depth q, every key pixel's epipolar sample position in the ref
 image is x_ref = pi(R x~ + q t) — i.e. ALL pixels' samples at hypothesis q
 form one plane-induced homography warp H_q = K_ref (R + q t e3^T) K_key^-1
 of the ref image onto the key grid.  Sweeping S inverse-depth planes
-replaces the per-pixel scattered epipolar gathers (143 ms per (64, N)
-jnp.take on a v5e — benchmarks/profile_stage2.py) with S two-pass
-axis-aligned warps (~140 us each — core/warp2pass.py), and the per-pixel
-epipolar line becomes the plane axis of the warped stack: 5 consecutive
-planes are 5 consecutive samples along the pixel's epipolar line.
+replaces the per-pixel scattered epipolar gathers with S dense warps
+(core/warp2pass.py, core/shiftwarp.py), and the per-pixel epipolar line
+becomes the plane axis of the warped stack: 5 consecutive planes are 5
+consecutive samples along the pixel's epipolar line.
 
 Differences vs the scattered estimator (estimator.py), by design:
 - Samples are uniform in INVERSE DEPTH (shared planes) instead of uniform
@@ -22,24 +21,18 @@ Differences vs the scattered estimator (estimator.py), by design:
   ranges still match their nearest plane.
 - The SSD minimum is refined to subpixel precision by parabolic
   interpolation over the three errors around the winning window — depth
-  resolution is not limited to the plane spacing (VERDICT r2 item 3).
+  resolution is not limited to the plane spacing.
 - Per-pixel failure flags keep the reference's priority chain; geometry
   flags come from the same ``_pixel_geometry`` as the scattered path.
 
-The normalized-SSD window search + masked argmin + neighbor extraction is
-a Pallas kernel (``_ssd_search_pallas``): the (S, rows, W) plane slab stays
-in VMEM and the (S-4, H, W) error volume is never materialized in HBM —
-the TPU equivalent of the reference's hand-written Rust inner loop
-(intensities.rs:11-37).  A pure-XLA fallback runs on CPU (tests) and
-verifies the kernel bit-for-bit on chip (tests/vo/test_sweep.py).
+The normalized-SSD window search + masked argmin + neighbor extraction
+(the reference's inner loop, intensities.rs:11-37) is ``ssd_search``.
 """
 
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from tadataka_tpu.flags import Flag
 from tadataka_tpu.core.gradients import sobel_x, sobel_y
@@ -57,8 +50,7 @@ from tadataka_tpu.vo.semi_dense.hypothesis import (
 from tadataka_tpu.vo.semi_dense.params import SemiDenseParams, N_KEY_SAMPLES
 
 DEFAULT_N_PLANES = 64
-_ROW_TILE = 8
-_INF = 3.0e38  # plain float: jnp constants can't be captured by kernels
+_INF = 3.0e38  # error of an invalid window (a plain float constant)
 
 
 # ------------------------------------------------------------ plane warps
@@ -87,10 +79,8 @@ def warp_plane_stack(ref_image, T_rk, qs, key_focal, key_offset,
     """(S, H, W) stack of the ref image warped onto the key grid at each
     inverse-depth plane; out-of-image / behind-camera lanes hold -1.
 
-    Gather-based (take_along_axis) variant — kept as the CPU/testing
-    reference; the TPU path is `warp_plane_stack_tent` (XLA:TPU runs
-    scattered gathers at ~14 ns/element, making this ~800 ms at 480x640,
-    while the tent shift-sum variant is gather-free)."""
+    Gather-based (take_along_axis) variant — the reference for the
+    gather-free `warp_plane_stack_tent` that the planned path runs."""
 
     def one(_, q):
         H33 = plane_homography(T_rk, q, key_focal, key_offset,
@@ -145,8 +135,8 @@ def warp_plane_stack_tent(ref_image, T_rk, qs, key_focal, key_offset,
 
 # ----------------------------------------------------------- SSD search
 
-def _window_errors_xla(V, K, mlo, mhi):
-    """(M, H, W) masked normalized-SSD errors — XLA fallback/reference."""
+def _window_errors(V, K, mlo, mhi):
+    """(M, H, W) masked normalized-SSD errors of every template window."""
     S = V.shape[0]
     Kw = K.shape[0]
     M = S - Kw + 1
@@ -165,8 +155,15 @@ def _window_errors_xla(V, K, mlo, mhi):
     return jnp.stack(errs)
 
 
-def _ssd_search_xla(V, K, mlo, mhi):
-    errs = _window_errors_xla(V, K, mlo, mhi)              # (M, H, W)
+def ssd_search(V, K, mlo, mhi):
+    """Masked normalized-SSD window search over the plane stack.
+
+    Returns (best_m (H,W) i32 with -1 = no valid window, err_center,
+    err_prev, err_next).  Plain XLA: on an H100 a fused Pallas-Triton
+    form of this search that never wrote the error volume was 2.4x
+    faster alone but no faster end to end (PERF.md), so it was removed.
+    """
+    errs = _window_errors(V, K, mlo, mhi)                  # (M, H, W)
     M = errs.shape[0]
     best_m = jnp.argmin(errs, axis=0)                      # (H, W)
     ec = jnp.take_along_axis(errs, best_m[None], axis=0)[0]
@@ -181,115 +178,6 @@ def _ssd_search_xla(V, K, mlo, mhi):
             ec, ep, en)
 
 
-def _ssd_kernel(v_ref, k_ref, mlo_ref, mhi_ref,
-                bm_ref, ec_ref, ep_ref, en_ref):
-    """Fused window search over one row tile; fully unrolled over windows.
-
-    v_ref: (S, Ht, W) warped plane slab (-1 = invalid sample)
-    k_ref: (Kw, Ht, W) key patch stack
-    mlo/mhi: (Ht, W) per-pixel valid window index bounds (f32)
-    outputs: best window index (f32, -1 = none) + its error and the two
-    neighboring windows' errors (for parabolic subpixel refinement).
-    """
-    S = v_ref.shape[0]
-    Kw = k_ref.shape[0]
-    M = S - Kw + 1
-
-    K = [k_ref[k] for k in range(Kw)]
-    Kn = jnp.sqrt(sum(k * k for k in K)) + EPSILON
-    mlo = mlo_ref[:]
-    mhi = mhi_ref[:]
-
-    best = jnp.full(mlo.shape, _INF)
-    bm = jnp.full(mlo.shape, -1.0)
-    ec = jnp.full(mlo.shape, _INF)
-    ep = jnp.full(mlo.shape, _INF)
-    en = jnp.full(mlo.shape, _INF)
-    prev_err = jnp.full(mlo.shape, _INF)
-
-    for m in range(M):
-        w = [v_ref[m + k] for k in range(Kw)]
-        corr = sum(wk * K[k] for k, wk in enumerate(w))
-        wn2 = sum(wk * wk for wk in w)
-        valid = w[0] >= 0.0
-        for wk in w[1:]:
-            valid = valid & (wk >= 0.0)
-        mf = jnp.float32(m)
-        valid = valid & (mf >= mlo) & (mf <= mhi)
-        err = 2.0 - 2.0 * corr / (jnp.sqrt(wn2) * Kn + EPSILON)
-        err = jnp.where(valid, err, _INF)
-
-        # this window is the right neighbor of the current best
-        en = jnp.where(mf == bm + 1.0, err, en)
-        is_new = err < best
-        ep = jnp.where(is_new, prev_err, ep)
-        en = jnp.where(is_new, _INF, en)
-        ec = jnp.where(is_new, err, ec)
-        bm = jnp.where(is_new, mf, bm)
-        best = jnp.minimum(best, err)
-        prev_err = err
-
-    bm_ref[:] = bm
-    ec_ref[:] = ec
-    ep_ref[:] = ep
-    en_ref[:] = en
-
-
-def _ssd_search_pallas(V, K, mlo, mhi):
-    S, H, W = V.shape
-    Kw = K.shape[0]
-    Ht = _ROW_TILE
-    assert H % Ht == 0, "pad rows to a multiple of the row tile"
-    grid = (H // Ht,)
-    out = pl.pallas_call(
-        _ssd_kernel,
-        out_shape=[jax.ShapeDtypeStruct((H, W), jnp.float32)] * 4,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((S, Ht, W), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Kw, Ht, W), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ht, W), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((Ht, W), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[pl.BlockSpec((Ht, W), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)] * 4,
-    )(V, K, mlo, mhi)
-    bm, ec, ep, en = out
-    return bm.astype(jnp.int32), ec, ep, en
-
-
-def ssd_search(V, K, mlo, mhi, use_pallas=None):
-    """Masked normalized-SSD window search over the plane stack.
-
-    Returns (best_m (H,W) i32 with -1 = no valid window, err_center,
-    err_prev, err_next).  ``use_pallas=None`` picks the Pallas kernel on
-    TPU and the XLA fallback elsewhere.  Row counts that don't fill the
-    kernel's 8-row tile are padded (with always-invalid window bounds)
-    and sliced back — never a silent fall-back to the slow path
-    (VERDICT r3 item 9).
-    """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if not use_pallas:
-        return _ssd_search_xla(V, K, mlo, mhi)
-    H = V.shape[1]
-    pad = (-H) % _ROW_TILE
-    if pad:
-        rows = [(0, 0), (0, pad), (0, 0)]
-        V = jnp.pad(V, rows, constant_values=-1.0)
-        K = jnp.pad(K, rows, constant_values=-1.0)
-        mlo = jnp.pad(mlo, [(0, pad), (0, 0)], constant_values=1e9)
-        mhi = jnp.pad(mhi, [(0, pad), (0, 0)], constant_values=-1e9)
-    bm, ec, ep, en = _ssd_search_pallas(V, K, mlo, mhi)
-    if pad:
-        bm, ec, ep, en = bm[:H], ec[:H], ep[:H], en[:H]
-    return bm, ec, ep, en
-
-
 # ------------------------------------------------------------- key patch
 
 def _key_patch_stack(key_image, key_focal, step_size_map, dir_x_map,
@@ -298,8 +186,8 @@ def _key_patch_stack(key_image, key_focal, step_size_map, dir_x_map,
     epipolar direction (epipolar.rs:22), via two-pass displacement warps.
 
     ``budget`` > 0 switches to the gather-free tent shift-sum passes
-    (core/shiftwarp.py) with that static displacement budget — the TPU
-    path; 0 keeps the take_along_axis form (CPU/testing).
+    (core/shiftwarp.py) with that static displacement budget — the
+    planned path; 0 keeps the take_along_axis form.
 
     ``col_block=(x0, w)`` (x0 may be traced) computes only those key
     columns from the full ``key_image`` — the column-sharded multi-chip
@@ -318,7 +206,7 @@ def _key_patch_stack(key_image, key_focal, step_size_map, dir_x_map,
     ys = jnp.broadcast_to(jnp.arange(H, dtype=f32)[:, None], (H, w))
     if budget > 0 and col_block is None:
         # all four offset planes in one batched two-pass warp (shared
-        # source pads / tap slices — VERDICT r4 item 1b)
+        # source pads / tap slices)
         offs = [k for k in range(-half, half + 1) if k != 0]
         x_maps = jnp.stack(
             [xs + k * step_size_map * dir_x_map * key_focal[0]
@@ -360,9 +248,7 @@ def postprocess_map(q_m, nomatch, kgrad, ks, gx_v, gy_v, g, p_inv,
     of (N,) fields; ``T_rk`` is ONE refframe's 4x4 relative transform —
     callers run this once per active refframe and merge by age index.
     Plain whole-array code, NOT a per-pixel vmap: the vmapped form built
-    (N, 2)/(N, 3) minor-axis stacks whose (8, 128) tiling pads the tiny
-    trailing dim to 128 lanes, making stage C 8.3 ms of an 11 ms sweep
-    (profiled r5); this form runs it in ~0.3 ms.
+    (N, 2)/(N, 3) stacks with a tiny minor dimension.
     """
     R = get_rotation(T_rk)
     t = get_translation(T_rk)
@@ -490,13 +376,13 @@ def _budget_segments(b):
     return b
 
 
-@partial(jax.jit, static_argnames=("n_planes", "use_pallas", "warp_budget",
+@partial(jax.jit, static_argnames=("n_planes", "warp_budget",
                                    "key_budget", "redirect", "fuse_prior"))
 def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
                        prior_variance, params: SemiDenseParams,
-                       n_planes=DEFAULT_N_PLANES, use_pallas=None,
-                       warp_budget=0, key_budget: int = 0,
-                       redirect=None, col_offset=None, fuse_prior=False):
+                       n_planes=DEFAULT_N_PLANES, warp_budget=0,
+                       key_budget: int = 0, redirect=None, col_offset=None,
+                       fuse_prior=False):
     """Full-map inverse-depth update via plane sweep.
 
     Same contract as estimator.update_depth (semi_dense.rs:160-237):
@@ -505,9 +391,9 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
 
     ``warp_budget`` / ``key_budget`` > 0 switch the plane and key-patch
     warps to the gather-free tent shift-sum path
-    (warp_plane_stack_tent) with those static displacement budgets — the
-    TPU configuration, planned host-side by fast.plan_update; 0 keeps the
-    gather-based warps (CPU/testing).
+    (warp_plane_stack_tent) with those static displacement budgets —
+    planned host-side by fast.plan_update; 0 keeps the gather-based
+    warps.
 
     ``n_planes`` and ``warp_budget`` may be per-refframe tuples: each
     refframe's sweep pays only for ITS epipolar span and displacement
@@ -578,11 +464,10 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
     def _select_active(*per_ref):
         """Merge per-active-refframe (N,) arrays by each pixel's ridx.
 
-        A select chain, not a gather: per-pixel gathers of tiny tables
-        cost ~14 ns/element on XLA:TPU, and broadcasting the transform to
-        (16, N) columns costs ~2 ms of pure layout traffic (profiled r5)
-        — computing each active refframe's whole-image geometry and
-        selecting is strictly cheaper for the short histories VO keeps.
+        A select chain, not a gather: computing each active refframe's
+        whole-image geometry and selecting avoids per-pixel gathers of
+        tiny tables and (16, N) broadcast transform columns for the short
+        histories VO keeps.
         """
         out = per_ref[0]
         for i in range(1, len(active)):
@@ -734,8 +619,7 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
                         constant_values=-1.0)
         V_sel = jnp.where(ridx_map[None] == r, V, V_sel)
 
-    # select chain, not a table gather (small-table gathers along N cost
-    # ~14 ns/element on TPU)
+    # select chain, not a table gather
     dq_sel = jnp.zeros((N,), f32)
     for r in active:
         dq_sel = jnp.where(ridx == r, jnp.asarray(dq_table[r], f32),
@@ -744,8 +628,7 @@ def update_depth_sweep(keyframe, refframes, age_map, prior_depth,
     tol = 0.5 * dq_sel
     mlo = jnp.ceil((lo_map - tol - q0) / dq_sel)
     mhi = jnp.floor((hi_map + tol - q0) / dq_sel)
-    bm, ec, ep, en = ssd_search(V_sel, K_stack, mlo, mhi,
-                                use_pallas=use_pallas)
+    bm, ec, ep, en = ssd_search(V_sel, K_stack, mlo, mhi)
 
     # parabolic subpixel refinement in inverse-depth units
     denom = ep - 2.0 * ec + en

@@ -8,7 +8,7 @@ dedicated block matcher (it reads depth ground truth from XML); this module
 supplies one so depth can be recovered from images alone — e.g. when the
 ground-truth depth files are unavailable.
 
-TPU design: the cost volume is built with whole-image shifts + a separable
+Design: the cost volume is built with whole-image shifts + a separable
 box filter — pure elementwise ops and convolutions, zero gathers.  One
 jitted program produces disparity, a validity mask, and depth.
 """

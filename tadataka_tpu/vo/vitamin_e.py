@@ -6,7 +6,7 @@ with persistent integer ids, affine flow prediction between frames
 curvature, keypoint spawning in newly-visible areas, id-intersection
 matching across frames, and multi-view triangulation of surviving tracks.
 
-TPU design: keypoint tables are (ids, coords) numpy pairs (the reference
+Design: keypoint tables are (ids, coords) numpy pairs (the reference
 used pandas DataFrames); the curvature, extrema-tracking, flow and
 triangulation math all run as the jitted kernels from ``features/`` and
 ``core/``.

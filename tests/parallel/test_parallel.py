@@ -258,13 +258,12 @@ def test_sharded_sweep_matches_single_device(rng):
 
     d1, v1, f1 = update_depth_sweep(
         kf, refs, age, prior, variance, params, n_planes=plan.n_planes,
-        use_pallas=False, warp_budget=plan.warp_budget,
+        warp_budget=plan.warp_budget,
         key_budget=KEY_BUDGET, redirect=plan.redirect)
     d1r = regularize(d1, v1, f1)
 
     mesh = make_mesh()
-    f = make_sharded_update_sweep(mesh, (H, W), plan, regularize=True,
-                                  use_pallas=False)
+    f = make_sharded_update_sweep(mesh, (H, W), plan, regularize=True)
     d8, v8, f8 = f(kf, refs, age, prior, variance, params)
 
     np.testing.assert_array_equal(np.asarray(f8), np.asarray(f1))
@@ -306,8 +305,7 @@ def test_sharded_sweep_no_collectives_in_update(rng):
 
     plan = plan_update(kf, refs, params)
     mesh = make_mesh()
-    f_nr = make_sharded_update_sweep(mesh, (H, W), plan, regularize=False,
-                                     use_pallas=False)
+    f_nr = make_sharded_update_sweep(mesh, (H, W), plan, regularize=False)
     hlo = f_nr.lower(kf, refs, age, prior, variance, params).compile()
     text = hlo.as_text()
     for coll in ("all-reduce", "all-gather", "collective-permute",
@@ -315,8 +313,7 @@ def test_sharded_sweep_no_collectives_in_update(rng):
         assert coll not in text, coll
 
     # with regularization ON the only collective is the halo ppermute
-    f_r = make_sharded_update_sweep(mesh, (H, W), plan, regularize=True,
-                                    use_pallas=False)
+    f_r = make_sharded_update_sweep(mesh, (H, W), plan, regularize=True)
     text_r = f_r.lower(kf, refs, age, prior, variance,
                        params).compile().as_text()
     assert "collective-permute" in text_r

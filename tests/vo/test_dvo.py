@@ -71,8 +71,8 @@ def test_dvo_translation_accuracy(scene):
 
 @pytest.mark.parametrize("method", ["ic", "fc"])
 def test_dvo_tent_sampler_matches_gather(scene, method):
-    """The gather-free tent resample path (sample_budget > 0, the TPU
-    configuration) meets the same acceptance bounds as the exact gather
+    """The gather-free tent resample path (sample_budget > 0) meets the
+    same acceptance bounds as the exact gather
     path and lands on nearly the same pose."""
     dataset, frame0, frame1, pose10_gt = scene
     kw = dict(n_coarse_to_fine=4, max_iter=20, method=method)

@@ -251,7 +251,7 @@ def test_propagate_tent_matches_scatter(stereo):
 
     q0, q1 = 1.0 / 50.0, 1.0 / 2.0
     bounds = plan_flow_bounds(T10, np.asarray(FOCAL), (W / 2, H / 2),
-                              (H, W), q0, q1)
+                              (H, W), q0, q1, taps_max=256)
     assert bounds is not None
 
     d_ref, v_ref = propagate(jnp.asarray(T10, jnp.float32), cam, cam,

@@ -17,9 +17,9 @@ from tadataka_tpu.vo.semi_dense import (
 from tadataka_tpu.vo.semi_dense.frame import stack_frames
 from tadataka_tpu.vo.semi_dense.sweep import (
     update_depth_sweep, warp_plane_stack, plane_homography,
-    _ssd_search_xla, ssd_search, _INF)
+    ssd_search, _INF)
 
-H, W = 64, 128   # row-tile / lane aligned so the pallas path is exercised
+H, W = 64, 128
 FOCAL = (60.0, 60.0)
 
 PARAMS = SemiDenseParams.create(
@@ -106,7 +106,7 @@ def test_ssd_search_xla_finds_planted_match():
     K = V[6:11]
     mlo = jnp.zeros((Hh, Ww), jnp.float32)
     mhi = jnp.full((Hh, Ww), float(S - 5), jnp.float32)
-    bm, ec, ep, en = _ssd_search_xla(V, K, mlo, mhi)
+    bm, ec, ep, en = ssd_search(V, K, mlo, mhi)
     assert np.all(np.asarray(bm) == 6)
     assert np.allclose(np.asarray(ec), 0.0, atol=1e-5)
     # neighbors exist and are worse
@@ -122,11 +122,11 @@ def test_ssd_search_respects_window_mask():
     # exclude the true window: only windows 0..3 allowed
     mlo = jnp.zeros((Hh, Ww), jnp.float32)
     mhi = jnp.full((Hh, Ww), 3.0, jnp.float32)
-    bm, ec, ep, en = _ssd_search_xla(V, K, mlo, mhi)
+    bm, ec, ep, en = ssd_search(V, K, mlo, mhi)
     assert np.all(np.asarray(bm) <= 3)
     # empty mask -> no match
-    bm2, ec2, _, _ = _ssd_search_xla(V, K, jnp.full((Hh, Ww), 10.0),
-                                     jnp.full((Hh, Ww), 3.0))
+    bm2, ec2, _, _ = ssd_search(V, K, jnp.full((Hh, Ww), 10.0),
+                                 jnp.full((Hh, Ww), 3.0))
     assert np.all(np.asarray(bm2) == -1)
     assert np.all(np.asarray(ec2) >= float(_INF))
 
@@ -138,10 +138,10 @@ def test_ssd_search_invalid_samples_masked():
     K = jnp.asarray(V[6:11].copy())
     # poison the true window's samples for half the pixels
     V[6:11, :, :64] = -1.0
-    bm, ec, ep, en = _ssd_search_xla(jnp.asarray(V), K,
-                                     jnp.zeros((Hh, Ww), jnp.float32),
-                                     jnp.full((Hh, Ww), float(S - 5),
-                                              jnp.float32))
+    bm, ec, ep, en = ssd_search(jnp.asarray(V), K,
+                                jnp.zeros((Hh, Ww), jnp.float32),
+                                jnp.full((Hh, Ww), float(S - 5),
+                                         jnp.float32))
     bm = np.asarray(bm)
     assert np.all(bm[:, 64:] == 6)
     assert np.all(bm[:, :64] != 6)
